@@ -1,11 +1,11 @@
-// Native acceleration-structure builders for vulkan_raytracer_tpu.
+// Native acceleration-structure builders for vulkan_raytracer.
 //
 // The reference delegates BLAS/TLAS construction to the Vulkan driver's
 // native implementation (src/accelerationstructure.cpp:85-151); this is our
 // native equivalent for the host-side build stage: uniform-grid CSR binning
 // and a median-split BVH, both O(T log T)-ish tight loops that are slow in
 // NumPy for Sponza-class triangle counts.  Exposed as a C ABI consumed via
-// ctypes (vulkan_raytracer_tpu/accel/native.py), with a pure-NumPy fallback
+// ctypes (vulkan_raytracer/accel/native.py), with a pure-NumPy fallback
 // when the shared library is unavailable.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libvkrt_accel.so accel_build.cpp

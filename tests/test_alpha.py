@@ -7,15 +7,14 @@ candidate) with a scalar LCG port — validating t/tri/occlusion AND the
 per-lane RNG stream advancement of the vectorised resample loop.
 """
 
-import os
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.ops.math3 import V3
-from vulkan_raytracer_tpu.render.integrator import _closest, _shadow
-from vulkan_raytracer_tpu.scene.scenegraph import Material, Scene
+from vulkan_raytracer.ops.math3 import V3
+from vulkan_raytracer.render.integrator import _closest, _shadow
+from vulkan_raytracer.scene.scenegraph import Material, Scene
 
 _LCG_MUL, _LCG_INC = 1664525, 1013904223
 
@@ -193,9 +192,8 @@ def test_alpha_closest_matches_oracle_dense():
 
 
 @pytest.mark.slow
-def test_alpha_closest_matches_oracle_packet(monkeypatch):
-    monkeypatch.setenv("VKRT_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("VKRT_FORCE_PACKET", "1")
+def test_alpha_closest_matches_oracle_packet(bvh_kernel_path):
+    """The any-hit resample loop over the BVH kernel (interpret mode)."""
     scene = _alpha_scene()
     tables = scene.upload()
     _check_against_oracle(scene, tables, n=64)
@@ -224,12 +222,12 @@ def test_alpha_shadow_matches_oracle():
 
 
 def test_mask_only_scene_is_deterministic_and_fast_path():
-    """MASK-only scenes must not consume RNG and stay off the grid path."""
-    from vulkan_raytracer_tpu.render.integrator import _dense_ok
-
+    """MASK-only scenes must not consume RNG, and take the same flat
+    traversal as opaque scenes (alpha is decided in the resample loop)."""
     scene = _alpha_scene(with_blend=False)
     tables = scene.upload()
-    assert _dense_ok(tables)  # no has_blend cliff any more
+    assert tables.has_alpha and not tables.has_blend
+    assert tables.inst is None  # the flat walk, no has_blend cliff
     n = 64
     o, d = _rays(n, seed=5)
     ov = V3(*(jnp.asarray(o[:, k]) for k in range(3)))
@@ -247,10 +245,10 @@ def test_mask_only_scene_is_deterministic_and_fast_path():
 
 
 @pytest.mark.slow
-def test_alpha_end_to_end_render():
-    """Full render of the alpha scene: smoke + dense-vs-packet equivalence."""
-    from vulkan_raytracer_tpu.render.integrator import render_sample
-    from vulkan_raytracer_tpu.scene.camera import Camera
+def test_alpha_end_to_end_render(monkeypatch):
+    """Full render of the alpha scene: smoke + dense-vs-kernel equivalence."""
+    from vulkan_raytracer.render.integrator import render_sample
+    from vulkan_raytracer.scene.camera import Camera
 
     scene = _alpha_scene()
     tables = scene.upload()
@@ -259,14 +257,13 @@ def test_alpha_end_to_end_render():
     vi = jnp.asarray(cam.view_inverse())
     pi = jnp.asarray(cam.projection_inverse())
     v_dense, _ = render_sample(tables, vi, pi, 24, 24, 2, 2)
-    os.environ["VKRT_PALLAS_INTERPRET"] = "1"
-    os.environ["VKRT_FORCE_PACKET"] = "1"
-    try:
-        v_packet, _ = render_sample(tables, vi, pi, 24, 24, 2, 2)
-    finally:
-        os.environ.pop("VKRT_PALLAS_INTERPRET", None)
-        os.environ.pop("VKRT_FORCE_PACKET", None)
-    a, b = np.asarray(v_dense), np.asarray(v_packet)
+    from vulkan_raytracer.ops import bvh_kernel
+    from vulkan_raytracer.render import integrator
+
+    monkeypatch.setattr(integrator, "DENSE_MAX_TRIS", 0)
+    monkeypatch.setattr(bvh_kernel, "kernel_mode", lambda: "interpret")
+    v_kernel, _ = render_sample(tables, vi, pi, 24, 24, 2, 2)
+    a, b = np.asarray(v_dense), np.asarray(v_kernel)
     assert np.isfinite(a).all()
     diff = np.abs(a - b).max(-1)
     assert (diff < 1e-5).mean() > 0.99

@@ -29,10 +29,10 @@ import struct
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.render import oracle
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.scenegraph import Scene
+from vulkan_raytracer.render import oracle
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.scenegraph import Scene
 
 from test_textured_glb import _Buf, _checker, _jpeg_bytes, _png_bytes
 

@@ -10,9 +10,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.ops import bsdf as B
-from vulkan_raytracer_tpu.ops import rng
-from vulkan_raytracer_tpu.ops.math3 import V3
+from vulkan_raytracer.ops import bsdf as B
+from vulkan_raytracer.ops import rng
+from vulkan_raytracer.ops.math3 import V3
 
 
 def _mat(n, seed=0, thin=False):

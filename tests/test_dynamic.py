@@ -7,9 +7,9 @@ Scene.upload().  Moving a node must change the render."""
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-from vulkan_raytracer_tpu.scene.camera import Camera
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.builtin import cornell_box_scene
+from vulkan_raytracer.scene.camera import Camera
 
 
 @pytest.mark.slow
@@ -69,7 +69,7 @@ def test_refit_beats_rebuild_on_large_scene():
     >=100k-triangle scene."""
     import time
 
-    from vulkan_raytracer_tpu.scene.procedural import dragon_scene
+    from vulkan_raytracer.scene.procedural import dragon_scene
 
     s = dragon_scene(detail=180)  # ~130k tris
     tables = s.upload()
@@ -97,7 +97,7 @@ def test_refit_matches_rebuild_traversal_level():
     without paying an integrator compile family."""
     import jax.numpy as jnp
 
-    from vulkan_raytracer_tpu.ops.traverse import trace_closest
+    from vulkan_raytracer.ops.traverse import trace_closest
 
     s = cornell_box_scene()
     t0 = s.upload()

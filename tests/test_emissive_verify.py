@@ -24,12 +24,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.ops.math3 import V3
-from vulkan_raytracer_tpu.render import integrator as I
-from vulkan_raytracer_tpu.render import oracle
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.scenegraph import Material, Scene
+from vulkan_raytracer.ops.math3 import V3
+from vulkan_raytracer.render import integrator as I
+from vulkan_raytracer.render import oracle
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.scenegraph import Material, Scene
 
 PANEL_Y = 2.0  # rear (sampled) panel height; shading points sit near y=0
 HALF = 0.5  # panel half-extent in x/z

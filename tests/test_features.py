@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.render import oracle
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.builtin import _add_primitive, _quad, cornell_box_scene
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.scenegraph import (
+from vulkan_raytracer.render import oracle
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.builtin import _add_primitive, _quad, cornell_box_scene
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.scenegraph import (
     DirectionalLight,
     Material,
     PointLight,
@@ -119,7 +119,7 @@ def test_glb_container(tmp_path):
     import json
     import struct
 
-    from vulkan_raytracer_tpu.scene.gltf import GLTF
+    from vulkan_raytracer.scene.gltf import GLTF
 
     src = json.load(open("/root/reference/res/CornellBox.gltf"))
     uri = src["buffers"][0]["uri"]
@@ -144,7 +144,7 @@ def test_glb_container(tmp_path):
 
 
 def test_cli_parsing_matches_reference_semantics():
-    from vulkan_raytracer_tpu.cli import build_parser, compose_transform
+    from vulkan_raytracer.cli import build_parser, compose_transform
 
     p = build_parser()
     a = p.parse_args(
@@ -165,8 +165,8 @@ def test_skybox_default_on_parity(tmp_path, monkeypatch):
     unconditionally (main.cpp:138-139,167): absence of --skybox still
     resolves hilly_terrain_01_4k.hdr through the resource search path —
     loaded when present, warn-and-continue when absent."""
-    from vulkan_raytracer_tpu.cli import DEFAULT_SKYBOX, build_parser, load_scene
-    from vulkan_raytracer_tpu.utils.image import write_hdr
+    from vulkan_raytracer.cli import DEFAULT_SKYBOX, build_parser, load_scene
+    from vulkan_raytracer.utils.image import write_hdr
 
     p = build_parser()
     a = p.parse_args(["-m", "cornell", "--spp", "1"])
@@ -194,7 +194,7 @@ def test_multi_model_composition(tmp_path):
     """Two Cornell boxes side by side via per-model transforms (main.cpp:159)."""
     s = Scene()
     s.load_model("/root/reference/res/CornellBox.gltf")
-    from vulkan_raytracer_tpu.cli import compose_transform
+    from vulkan_raytracer.cli import compose_transform
 
     s.load_model(
         "/root/reference/res/CornellBox.gltf",
@@ -240,7 +240,7 @@ def test_physical_nee_weighting_brightens_direct_light():
     corrected image must be strictly brighter on lit diffuse surfaces."""
     tables = cornell_box_scene().upload()
     cam = Camera(position=np.array([0.0, 1.0, 2.4]), direction=np.array([0.0, 0.0, -1.0]))
-    from vulkan_raytracer_tpu.render.renderer import render_image as ri
+    from vulkan_raytracer.render.renderer import render_image as ri
 
     ref, _ = ri(tables, cam, 24, 24, spp=4, max_depth=2, tonemap=False)
     phys, _ = ri(
@@ -256,8 +256,8 @@ def test_checkpoint_resume_matches_straight_render(tmp_path):
     """2 spp + resumed 2 spp == straight 4 spp (same sample indices)."""
     import numpy as np
 
-    from vulkan_raytracer_tpu import cli
-    from vulkan_raytracer_tpu.utils.image import read_png
+    from vulkan_raytracer import cli
+    from vulkan_raytracer.utils.image import read_png
 
     common = ["-m", "cornell", "-r", "20,16", "-b", "2", "-c", "0,1,2.4"]
     ck = str(tmp_path / "state.npz")
@@ -276,7 +276,7 @@ def test_checkpoint_resume_matches_straight_render(tmp_path):
 def test_resume_rejects_mismatched_shape(tmp_path):
     import pytest as _pytest
 
-    from vulkan_raytracer_tpu import cli
+    from vulkan_raytracer import cli
 
     ck = str(tmp_path / "state.npz")
     cli.main(["-m", "cornell", "-r", "20,16", "-b", "2", "--spp", "1",
@@ -291,7 +291,7 @@ def test_resume_rejects_mismatched_camera_and_settings(tmp_path):
     different NEE estimator must refuse to blend accumulations."""
     import pytest as _pytest
 
-    from vulkan_raytracer_tpu import cli
+    from vulkan_raytracer import cli
 
     ck = str(tmp_path / "state.npz")
     cli.main(["-m", "cornell", "-r", "20,16", "-b", "2", "--spp", "1",
@@ -317,8 +317,8 @@ def test_hdr_output_shares_the_png_accumulation(tmp_path):
     (one render per invocation), honouring --resume: hdr == acc/total."""
     import numpy as np
 
-    from vulkan_raytracer_tpu import cli
-    from vulkan_raytracer_tpu.utils.image import read_hdr
+    from vulkan_raytracer import cli
+    from vulkan_raytracer.utils.image import read_hdr
 
     common = ["-m", "cornell", "-r", "20,16", "-b", "2", "-c", "0,1,2.4"]
     ck = str(tmp_path / "state.npz")
@@ -340,7 +340,7 @@ def test_sample_equirect_matches_numpy_oracle():
     (skybox.rmiss:17-29 mapping incl. the negative-v wrap)."""
     import jax.numpy as jnp
 
-    from vulkan_raytracer_tpu.ops.texture import pack_envmap, sample_equirect
+    from vulkan_raytracer.ops.texture import pack_envmap, sample_equirect
 
     rng = np.random.default_rng(11)
     env = rng.uniform(0.0, 4.0, (17, 31, 3)).astype(np.float32)

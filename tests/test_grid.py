@@ -4,19 +4,34 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.accel.grid import build_grid
-from vulkan_raytracer_tpu.ops.grid_traverse import grid_closest, grid_shadow
-from vulkan_raytracer_tpu.ops.intersect import brute_force_closest
-from vulkan_raytracer_tpu.ops.math3 import V3
-from vulkan_raytracer_tpu.scene.builtin import triangle_soup_scene
+from vulkan_raytracer.accel.grid import build_grid
+from vulkan_raytracer.ops.grid_traverse import grid_closest, grid_shadow
+from vulkan_raytracer.ops.intersect import brute_force_closest
+from vulkan_raytracer.ops.math3 import V3
+from vulkan_raytracer.scene.builtin import triangle_soup_scene
 
 
 @pytest.fixture(scope="module")
 def soup():
+    """Upload tables plus a grid built over them (the grid is not part of
+    the render tables: it is a traversal alternative, built on request)."""
     s = triangle_soup_scene(1500, seed=11)
     t = s.upload()
     v = lambda c: np.stack([np.asarray(c.x), np.asarray(c.y), np.asarray(c.z)], -1)
-    return t, v(t.v0), v(t.v1), v(t.v2)
+    v0, v1, v2 = v(t.v0), v(t.v1), v(t.v2)
+    t = _WithGrid(t, build_grid(v0, v1, v2))
+    return t, v0, v1, v2
+
+
+class _WithGrid:
+    """Scene tables with a ``grid`` attribute, as the grid walk expects."""
+
+    def __init__(self, tables, grid):
+        self._tables = tables
+        self.grid = grid
+
+    def __getattr__(self, name):
+        return getattr(self._tables, name)
 
 
 def _rays(n, seed, extent=14.0):

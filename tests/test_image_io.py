@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from vulkan_raytracer_tpu.utils.image import (
+from vulkan_raytracer.utils.image import (
     decode_texture,
     read_hdr,
     read_png,

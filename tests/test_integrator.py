@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vulkan_raytracer_tpu.render import integrator as I
-from vulkan_raytracer_tpu.render.renderer import Renderer, render_image
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.scenegraph import Scene
+from vulkan_raytracer.render import integrator as I
+from vulkan_raytracer.render.renderer import Renderer, render_image
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.scenegraph import Scene
 
 CORNELL = "/root/reference/res/CornellBox.gltf"
 W = H = 48
@@ -103,7 +103,7 @@ def test_nee_prune_bit_identical(tables, cam, monkeypatch):
     (radiance == 0 or BSDF == 0) whether or not the shadow ray is traced.
     Only the emissive-verify probe's ray counter may shrink (pruned lanes
     skip the pdf probe)."""
-    from vulkan_raytracer_tpu.render import renderer as R
+    from vulkan_raytracer.render import renderer as R
 
     assert not tables.has_alpha  # Cornell is opaque: the prune is active
     img_on, rays_on = R.render_image(
@@ -124,9 +124,9 @@ def test_banded_render_matches_single_pass(monkeypatch):
     """Large-frame lane banding (renderer.MAX_LANES_PER_PASS) is exact."""
     import numpy as np
 
-    from vulkan_raytracer_tpu.render import renderer as R
-    from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-    from vulkan_raytracer_tpu.scene.camera import Camera
+    from vulkan_raytracer.render import renderer as R
+    from vulkan_raytracer.scene.builtin import cornell_box_scene
+    from vulkan_raytracer.scene.camera import Camera
 
     tables = cornell_box_scene().upload()
     cam = Camera(

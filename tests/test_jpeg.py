@@ -12,8 +12,8 @@ import pytest
 
 PIL_Image = pytest.importorskip("PIL.Image")
 
-from vulkan_raytracer_tpu.utils.image import decode_texture
-from vulkan_raytracer_tpu.utils.jpeg import JPEGError, decode_jpeg
+from vulkan_raytracer.utils.image import decode_texture
+from vulkan_raytracer.utils.jpeg import JPEGError, decode_jpeg
 
 
 def _test_image():

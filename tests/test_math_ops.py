@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vulkan_raytracer_tpu.ops import math3, spectral, tonemap
+from vulkan_raytracer.ops import math3, spectral, tonemap
 
 
 def rand_unit(n, seed=0):

@@ -13,16 +13,16 @@ import jax
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.parallel.multihost import (
+from vulkan_raytracer.parallel.multihost import (
     broadcast_scene_tables,
     is_io_host,
     make_fleet_mesh,
     render_image_multihost,
 )
-from vulkan_raytracer_tpu.parallel.sharding import render_image_sharded
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-from vulkan_raytracer_tpu.scene.camera import Camera
+from vulkan_raytracer.parallel.sharding import render_image_sharded
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.builtin import cornell_box_scene
+from vulkan_raytracer.scene.camera import Camera
 
 
 def _cam():

@@ -71,9 +71,9 @@ def test_two_process_fleet_matches_single_process(tmp_path):
 
     # equality with the plain single-process path (this pytest process
     # holds its own 8-device CPU mesh, but render_image is unsharded)
-    from vulkan_raytracer_tpu.render.renderer import render_image
-    from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-    from vulkan_raytracer_tpu.scene.camera import Camera
+    from vulkan_raytracer.render.renderer import render_image
+    from vulkan_raytracer.scene.builtin import cornell_box_scene
+    from vulkan_raytracer.scene.camera import Camera
 
     tables = cornell_box_scene().upload()
     cam = Camera(

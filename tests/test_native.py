@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-import vulkan_raytracer_tpu.accel.native as native_mod
-from vulkan_raytracer_tpu.accel.bvh import build_bvh
-from vulkan_raytracer_tpu.accel.grid import build_grid
+import vulkan_raytracer.accel.native as native_mod
+from vulkan_raytracer.accel.bvh import build_bvh
+from vulkan_raytracer.accel.grid import build_grid
 
 
 def _tris(n=1200, seed=2):

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.parallel.sharding import make_mesh, render_image_sharded
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-from vulkan_raytracer_tpu.scene.camera import Camera
+from vulkan_raytracer.parallel.sharding import make_mesh, render_image_sharded
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.builtin import cornell_box_scene
+from vulkan_raytracer.scene.camera import Camera
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
@@ -53,7 +53,7 @@ def test_sharded_banded_path_matches(monkeypatch):
     """Force per-chip banding + sample chunking (the round-2 verdict gap:
     the sharded path now reuses the single-chip block-swizzle/band/wave
     machinery) and check equivalence against the single-device render."""
-    from vulkan_raytracer_tpu.render import renderer as rmod
+    from vulkan_raytracer.render import renderer as rmod
 
     tables = cornell_box_scene().upload()
     mesh = make_mesh()
@@ -93,17 +93,13 @@ def test_sharded_instanced_tables_replicate():
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_sharded_windowed_packet_matches_single_device(monkeypatch):
-    """The round-4 windowed treelet walk must compose with shard_map: a
-    multi-treelet scene forced through the packet path renders the same
-    image sharded and single-device (pallas_call-in-shard_map seam)."""
-    from vulkan_raytracer_tpu.scene.builtin import triangle_soup_scene
+def test_sharded_windowed_packet_matches_single_device(bvh_kernel_path):
+    """The BVH kernel must compose with shard_map: a scene forced through
+    the kernel (interpret mode) renders the same image sharded and
+    single-device (pallas_call-in-shard_map seam)."""
+    from vulkan_raytracer.scene.builtin import triangle_soup_scene
 
-    monkeypatch.setenv("VKRT_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("VKRT_FORCE_PACKET", "1")
-    monkeypatch.setenv("VKRT_TREELET_TRIS", "128")
     tables = triangle_soup_scene(n_tris=400, seed=3).upload()
-    assert tables.pbvh.n_treelets > 2
     mesh = make_mesh()
     cam = Camera(
         position=np.array([0.0, 0.0, 4.0]), direction=np.array([0.0, 0.0, -1.0])

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.render import renderer as rnd
-from vulkan_raytracer_tpu.render.integrator import render_sample
-from vulkan_raytracer_tpu.render.renderer import (
+from vulkan_raytracer.render import renderer as rnd
+from vulkan_raytracer.render.integrator import render_sample
+from vulkan_raytracer.render.renderer import (
     camera_uniforms,
     render_image,
 )
-from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-from vulkan_raytracer_tpu.scene.camera import Camera
+from vulkan_raytracer.scene.builtin import cornell_box_scene
+from vulkan_raytracer.scene.camera import Camera
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,7 @@ to 32 bits, independently of the JAX code under test.
 import numpy as np
 import jax.numpy as jnp
 
-from vulkan_raytracer_tpu.ops import rng
+from vulkan_raytracer.ops import rng
 
 M32 = 0xFFFFFFFF
 

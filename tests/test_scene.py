@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.scene.camera import Camera, look_at, perspective
-from vulkan_raytracer_tpu.scene.gltf import GLTF, node_local_transform, quat_to_mat4
-from vulkan_raytracer_tpu.scene.scenegraph import Scene
+from vulkan_raytracer.scene.camera import Camera, look_at, perspective
+from vulkan_raytracer.scene.gltf import GLTF, node_local_transform, quat_to_mat4
+from vulkan_raytracer.scene.scenegraph import Scene
 
 CORNELL = "/root/reference/res/CornellBox.gltf"
 
@@ -149,7 +149,7 @@ def test_sparse_accessor_decoding():
 
     import numpy as np
 
-    from vulkan_raytracer_tpu.scene.gltf import GLTF
+    from vulkan_raytracer.scene.gltf import GLTF
 
     base = np.arange(12, dtype=np.float32).reshape(4, 3)
     sp_idx = np.array([1, 3], np.uint16)
@@ -200,7 +200,7 @@ def test_texture_atlas_memory_is_payload_bound():
     """
     import numpy as np
 
-    from vulkan_raytracer_tpu.ops.texture import pack_textures
+    from vulkan_raytracer.ops.texture import pack_textures
 
     rng = np.random.default_rng(7)
     sizes = [(int(rng.integers(8, 256)), int(rng.integers(8, 256))) for _ in range(70)]
@@ -221,7 +221,7 @@ def test_texture_atlas_bilinear_matches_numpy():
     import jax.numpy as jnp
     import numpy as np
 
-    from vulkan_raytracer_tpu.ops.texture import pack_textures, sample_bilinear
+    from vulkan_raytracer.ops.texture import pack_textures, sample_bilinear
 
     rng = np.random.default_rng(11)
     textures = [rng.random((h, w, 4), np.float32) for h, w in [(5, 9), (16, 3), (1, 1)]]

@@ -23,11 +23,11 @@ import struct
 import numpy as np
 import pytest
 
-from vulkan_raytracer_tpu.render import oracle
-from vulkan_raytracer_tpu.render.renderer import render_image
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.scenegraph import Scene
-from vulkan_raytracer_tpu.utils.image import write_png
+from vulkan_raytracer.render import oracle
+from vulkan_raytracer.render.renderer import render_image
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.scenegraph import Scene
+from vulkan_raytracer.utils.image import write_png
 
 FLOAT, USHORT, UINT = 5126, 5123, 5125
 

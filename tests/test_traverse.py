@@ -4,10 +4,10 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from vulkan_raytracer_tpu.accel.bvh import build_bvh
-from vulkan_raytracer_tpu.ops import rng
-from vulkan_raytracer_tpu.ops.intersect import brute_force_closest, ray_aabb, ray_triangle, safe_inv_dir
-from vulkan_raytracer_tpu.ops.traverse import (
+from vulkan_raytracer.accel.bvh import build_bvh
+from vulkan_raytracer.ops import rng
+from vulkan_raytracer.ops.intersect import brute_force_closest, ray_aabb, ray_triangle, safe_inv_dir
+from vulkan_raytracer.ops.traverse import (
     AlphaTables,
     EmissivePDFTables,
     trace_closest,

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.viewer import MouseState, parse_input
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.viewer import MouseState, parse_input
 
 
 def test_parse_keys_and_mouse():
@@ -74,7 +74,7 @@ def test_present_elides_repeated_colours():
     """_present emits one SGR pair for a flat image and full codes on change."""
     import numpy as np
 
-    from vulkan_raytracer_tpu.viewer import _present
+    from vulkan_raytracer.viewer import _present
 
     flat = np.full((4, 8, 3), 17, np.uint8)
     s = _present(flat)
@@ -100,9 +100,9 @@ def test_sigwinch_resize_resets_accumulation():
     accumulation reset, pipelined in-flight frame dropped."""
     import os
 
-    from vulkan_raytracer_tpu.render.renderer import Renderer
-    from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-    from vulkan_raytracer_tpu.viewer import apply_resize
+    from vulkan_raytracer.render.renderer import Renderer
+    from vulkan_raytracer.scene.builtin import cornell_box_scene
+    from vulkan_raytracer.viewer import apply_resize
 
     t = cornell_box_scene().upload()
     cam = Camera(

@@ -1,7 +1,8 @@
 """Wavefront width ladder: bit-exactness vs the single full-width loop.
 
-The packet-path bounce loop (render/integrator.render_sample) halves then
-quarters the wavefront width once the live count fits the prefix (dead
+Under the opt-in coherence repacking (``VKRT_FORCE_REPACK=1``) the bounce
+loop (render/integrator.render_sample) halves then quarters the wavefront
+width once the live count fits the prefix (dead
 lanes sort last, so the live wavefront is a prefix after the coherence
 sort).  Dead lanes' state is invariant under bounce(), so the ladder must
 be BIT-identical to the full-width loop — this pins it on a scene whose
@@ -9,24 +10,14 @@ occupancy collapses fast (most primary rays miss to the skybox), which
 drives both the half and quarter tiers.
 """
 
-import os
-
 import numpy as np
-import pytest
 
 import jax.numpy as jnp
 
-from vulkan_raytracer_tpu.render.integrator import render_sample
-from vulkan_raytracer_tpu.scene.camera import Camera
-from vulkan_raytracer_tpu.scene.procedural import sky_hdr
-from vulkan_raytracer_tpu.scene.builtin import cornell_box_scene
-
-
-@pytest.fixture
-def interpret():
-    os.environ["VKRT_PALLAS_INTERPRET"] = "1"
-    yield
-    os.environ.pop("VKRT_PALLAS_INTERPRET", None)
+from vulkan_raytracer.render.integrator import render_sample
+from vulkan_raytracer.scene.camera import Camera
+from vulkan_raytracer.scene.procedural import sky_hdr
+from vulkan_raytracer.scene.builtin import cornell_box_scene
 
 
 def _open_scene():
@@ -38,7 +29,7 @@ def _open_scene():
     return s.upload()
 
 
-def test_width_ladder_bit_identical(interpret, monkeypatch):
+def test_width_ladder_bit_identical(monkeypatch):
     t = _open_scene()
     cam = Camera(position=np.array([0.0, 1.0, 14.0]),
                  direction=np.array([0.0, 0.0, -1.0]))
@@ -46,7 +37,6 @@ def test_width_ladder_bit_identical(interpret, monkeypatch):
     vi = jnp.asarray(cam.view_inverse())
     pi = jnp.asarray(cam.projection_inverse())
 
-    monkeypatch.setenv("VKRT_FORCE_PACKET", "1")
     monkeypatch.setenv("VKRT_FORCE_REPACK", "1")
 
     monkeypatch.setenv("VKRT_NO_WIDTH_LADDER", "1")

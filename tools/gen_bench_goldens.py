@@ -3,7 +3,7 @@
 
 Run OFFLINE (CPU, minutes) whenever a bench scene/camera/gate changes; the
 resulting npz is committed so bench.py never pays a brute-force oracle
-render on the clock (round-3 verdict item 1).  Each crop is stored with a
+render on the clock.  Each crop is stored with a
 scene/camera fingerprint so staleness is a hard error, not silent drift.
 
 Usage: python tools/gen_bench_goldens.py [cfg_key ...]
@@ -21,7 +21,7 @@ os.environ.setdefault("VKRT_LOG_LEVEL", "ERROR")
 import numpy as np  # noqa: E402
 
 import bench  # noqa: E402
-from vulkan_raytracer_tpu.render import oracle  # noqa: E402
+from vulkan_raytracer.render import oracle  # noqa: E402
 
 
 def main() -> None:
